@@ -4,8 +4,8 @@ The reference's "CLI" is one positional scene-file argument into a Qt GUI
 (reference main.cpp:36-39).  Here: subcommands for rendering, photon-pass
 inspection, gradient checking and benchmarking, PNG output, checkpointing.
 
-  python -m gi_raytracer_tpu.cli render scenes/cornell/test.scn -o out.png
-  python -m gi_raytracer_tpu.cli bench  scenes/cornell/test.scn
+  python -m gi_raytracer_tpu.cli render scenes/cornell/cornell.scn -o out.png
+  python -m gi_raytracer_tpu.cli bench  scenes/cornell/cornell.scn
 """
 
 from __future__ import annotations
@@ -63,12 +63,16 @@ def cmd_render(args):
     from .render.integrator import Renderer
     from .io import save_png
     from .io.checkpoint import save_checkpoint, load_checkpoint
+    from .runtime import device_info
 
     if args.distributed:
         # multi-host entry (jax.distributed.initialize) — every host runs
-        # this same command; the mesh spans all chips of all hosts
+        # this same command; the mesh spans all devices of all hosts
         from .parallel import init_distributed
         init_distributed()
+    dev = device_info()
+    print(f"[device] platform={dev['platform']} kind={dev['kind']} "
+          f"count={dev['count']}")
 
     ls, cfg, cam = _build(args)
     pm = _photon_map(ls, cfg, devices=args.devices) \
@@ -197,19 +201,10 @@ def cmd_bench(args):
                       "size": [args.width, args.height]}))
 
 
-def _enable_compile_cache():
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv=None):
-    _enable_compile_cache()
+    from .runtime import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="gi_raytracer_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in (("render", cmd_render), ("photons", cmd_photons),

@@ -3,7 +3,7 @@
 The north-star requirement is that pixel gradients flow to MATERIAL,
 TEXTURE, LIGHT and GEOMETRY parameters (the reference renderer,
 include/raytracer.h, has no gradients at all — differentiability is the
-headline capability the TPU rebuild adds).  Each checker here differentiates
+headline capability this rebuild adds).  Each checker here differentiates
 a small rendered image's mean intensity with respect to one parameter
 family and compares against central finite differences on the SAME
 deterministic estimator (counter-based RNG => identical stochastic

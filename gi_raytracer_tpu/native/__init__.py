@@ -1,41 +1,64 @@
 """Native (C++) host-runtime components with ctypes bindings.
 
 The reference's whole runtime is C++; in this framework the device compute
-path is JAX/Pallas, and the host-side scene pipeline (BVH build, OBJ parse)
-has native implementations here — compiled on demand with g++, cached next
-to the sources, with transparent NumPy fallbacks when no toolchain exists.
+path is JAX, and the host-side scene pipeline (BVH build, OBJ parse) has
+native implementations here — compiled with g++ from the sources in this
+directory at first use, into ``_build/`` under a name keyed on a hash of
+the sources and flags (so a stale or foreign binary is never loaded), with
+NumPy fallbacks when no toolchain exists.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
+_BUILD_DIR = os.path.join(_DIR, "_build")
+_SRCS = ("bvh_builder.cpp", "obj_loader.cpp")
+# portable flags: the build directory may be copied between machines
+_FLAGS = ("-O3", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
 
-def _compile() -> str | None:
-    so = os.path.join(_DIR, "_gi_native.so")
-    srcs = [os.path.join(_DIR, "bvh_builder.cpp"),
-            os.path.join(_DIR, "obj_loader.cpp")]
-    newest = max(os.path.getmtime(s) for s in srcs)
-    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+def library_path(build_dir: str = _BUILD_DIR) -> str:
+    """Where the library built from the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SRCS:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(build_dir, f"_gi_native-{h.hexdigest()[:16]}.so")
+
+
+def _compile(build_dir: str = _BUILD_DIR) -> str | None:
+    """Build the library unless this exact build exists; None when no
+    compiler is available."""
+    so = library_path(build_dir)
+    if os.path.exists(so):
         return so
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", so] + srcs,
-            check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *_FLAGS, "-o", tmp]
+                       + [os.path.join(_DIR, n) for n in _SRCS],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)   # atomic: concurrent builders never see a torn file
         return so
-    except Exception:
+    except (OSError, subprocess.CalledProcessError,
+            subprocess.TimeoutExpired):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..scene.types import Scene, Textures, TEX_CHECKER, TEX_IMAGE
@@ -19,9 +20,8 @@ from .geom import (dot, normalize, reflect, refract_tir, hemisphere_cos,
 # --------------------------------------------------------------------------
 # packed prim shade rows (v2 fast path)
 #
-# Per-hit attribute fetches are random gathers; on TPU a gather's cost is
-# per-CALL (~2 ms at 262k lanes), nearly independent of row width.  So the
-# fastest shade path is ONE wide gather: everything a bounce needs about the
+# Per-hit attribute fetches are random gathers, and each gather is one
+# pass over all lanes.  So the shade path is ONE wide gather: everything a bounce needs about the
 # winning primitive — exact-MT geometry, normals, uvs, material scalars and
 # both texture descriptors — packed into a single (P, 64) row table.  The
 # table is built from the canonical Scene arrays inside the jitted render
@@ -229,7 +229,8 @@ def shade_from_rows(scene: Scene, row, ro, rd, t, prim, bu, bv) -> ShadeResult:
 
 def _cone_attrs_from(point, pos, h, w2l):
     """Cone (normal, uv) from row-sourced parameters (entities.h:246-256)."""
-    p = jnp.einsum("...ij,...j->...i", w2l, point - pos)
+    p = jnp.einsum("...ij,...j->...i", w2l, point - pos,
+                   precision=jax.lax.Precision.HIGHEST)
     phi = jnp.arctan2(p[..., 1], p[..., 0])
     phi = jnp.where(phi < 0, phi + 2 * jnp.pi, phi)
     u = phi / (2 * jnp.pi)
@@ -243,17 +244,17 @@ def _cone_attrs_from(point, pos, h, w2l):
     n_local = jnp.cross(dpdu, dpdv)
     nl = jnp.linalg.norm(n_local, axis=-1, keepdims=True)
     n_local = n_local / jnp.maximum(nl, 1e-30)
-    n_world = jnp.einsum("...ji,...j->...i", w2l, n_local)
+    n_world = jnp.einsum("...ji,...j->...i", w2l, n_local,
+                         precision=jax.lax.Precision.HIGHEST)
     return n_world, jnp.stack([u, v], -1)
 
 
 # --------------------------------------------------------------------------
 # packed shade tables
 #
-# Per-hit attribute fetches are random gathers; on TPU a gather's cost is
-# per-row, nearly independent of row width, so ~25 narrow gathers per bounce
-# (one per SoA field) cost ~20 ms/wave at 262k lanes.  Packing the per-tri,
-# per-material and per-texture fields into single wide tables makes each
+# Per-hit attribute fetches are random gathers, one pass over the lanes
+# each, so ~25 narrow gathers per bounce (one per SoA field) would each
+# re-read the lane indices.  Packing the per-tri, per-material and per-texture fields into single wide tables makes each
 # bounce 4 gathers.  The packs are built from the canonical Scene arrays
 # inside the jitted render (cheap: one pass over T rows, hoisted out of the
 # bounce scan as a loop constant) so gradients still flow to the canonical

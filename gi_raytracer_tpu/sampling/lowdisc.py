@@ -1,6 +1,6 @@
 """Low-discrepancy scalar/vector sequences beyond the Halton engine.
 
-TPU-native re-designs of the reference's misc samplers (reference
+Vectorized re-designs of the reference's misc samplers (reference
 include/util.cpp:108-162, include/util.h:162-188):
 
 * ``radical_inverse_vdc``  — base-2 Van-der-Corput bit reversal

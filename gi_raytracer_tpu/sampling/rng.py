@@ -62,9 +62,9 @@ def _mix(h: jnp.ndarray) -> jnp.ndarray:
 def hash_u01(a: jnp.ndarray, b, c=0) -> jnp.ndarray:
     """Uniform in [0,1) from integer coordinates (vectorized).
 
-    Converts via the top 24 bits through int32 — the only uint->float path
-    Mosaic supports — so Pallas kernels can reproduce every stream
-    bit-exactly (the bounce megakernel replays these uniforms in-kernel)."""
+    Converts via the top 24 bits through int32, so a kernel can reproduce
+    every stream bit-exactly (ops.triton_trace replays the stochastic-alpha
+    uniforms in-kernel)."""
     a = jnp.asarray(a, jnp.uint32)
     b = jnp.asarray(b, jnp.uint32)
     c = jnp.asarray(c, jnp.uint32)

@@ -172,10 +172,10 @@ class SceneBuilder:
         else:
             v = np.zeros((0, 3, 3)); n = np.zeros((0, 3, 3)); uv = np.zeros((0, 3, 2))
         # --- BVH over triangles, built FIRST so the triangle arrays can be
-        # permuted into BVH leaf order: the Pallas dense-chunk kernel culls
-        # per 128-triangle chunk, so consecutive triangles must be spatially
-        # coherent (insertion order is mesh-file order — scattered AABBs
-        # defeat every chunk cull)
+        # permuted into BVH leaf order: consecutive triangles are then
+        # spatially coherent, which the chunked traversal kernel
+        # (ops.triton_trace) culls by (insertion order is mesh-file order —
+        # scattered AABBs defeat every chunk cull)
         tri_min = v.min(1) if Tn else np.zeros((0, 3))
         tri_max = (v.max(1) + 1e-5) if Tn else np.zeros((0, 3))  # entities.h:547
         bvh_np = build_bvh(tri_min, tri_max, leaf_size=leaf_size)

@@ -2,7 +2,7 @@
 
 Replaces the reference's recursive pointer octree (octree.cpp:316-384) with a
 median-split BVH emitted directly as flat arrays for stackless lockstep
-traversal on TPU: node i descends to i+1 on AABB hit and jumps to skip[i] on
+traversal: node i descends to i+1 on AABB hit and jumps to skip[i] on
 miss / after a leaf; skip[last] == n_nodes terminates.
 
 Build is O(N log N) NumPy (argsort-based median split over the longest
@@ -36,14 +36,10 @@ def build_bvh(pmin: np.ndarray, pmax: np.ndarray, leaf_size: int = 4,
     Both emit the identical preorder skip-link array contract.
     """
     if use_native and len(pmin) > 0:
-        try:
-            from ..native import build_bvh_native
-            out = build_bvh_native(np.asarray(pmin), np.asarray(pmax),
-                                   leaf_size)
-            if out is not None:
-                return out
-        except Exception:
-            pass
+        from ..native import build_bvh_native
+        out = build_bvh_native(np.asarray(pmin), np.asarray(pmax), leaf_size)
+        if out is not None:
+            return out
     return _build_bvh_numpy(pmin, pmax, leaf_size)
 
 

@@ -46,7 +46,12 @@ def _load_image_rgba(path: str) -> tuple[np.ndarray, bool]:
     """Image file -> (H, W, 4) linear-space float RGBA + has_alpha flag.
     De-gamma (2.2) happens here once, vs per-fetch in the reference
     (material.h:67)."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"imTex {path!r} needs Pillow to decode the image; install "
+            "pillow or use colorTex/checkerboardTex") from e
 
     im = Image.open(path)
     has_alpha = im.mode in ("RGBA", "LA", "PA")
@@ -125,8 +130,7 @@ def load_scene(path: str, base_config: RenderConfig | None = None,
             mat = int(v[7])
             p = os.path.join(scene_dir, fn)
             if not os.path.exists(p):
-                print(f"[scn] missing mesh {fn}; skipping")
-                continue
+                raise FileNotFoundError(f"{path}: mesh {fn!r} not found at {p}")
             tv, tn, tuv = load_obj(p, pos, rot)
             b.add_triangles(tv, tn, tuv, mat)
         elif key == "sphere":

@@ -1,6 +1,6 @@
 """Execution-strategy equivalence: the renderer's result must not depend on
-HOW the work is scheduled (fused device loop vs host-stepped waves,
-compacted vs dense wavefronts) — only on the deterministic sample streams."""
+HOW the work is scheduled (fused device loop vs host-stepped waves, batched
+vs single waves) — only on the deterministic sample streams."""
 
 import numpy as np
 import jax
@@ -12,10 +12,9 @@ from gi_raytracer_tpu.render.integrator import Renderer, radiance_wave
 import __graft_entry__ as ge
 
 
-def _setup(compact=False, **kw):
+def _setup(**kw):
     scene = ge._tiny_scene(np.float32)
-    cfg = RenderConfig(min_samples=2, max_samples=4, max_depth=3,
-                       compact_wavefront=compact, **kw)
+    cfg = RenderConfig(min_samples=2, max_samples=4, max_depth=3, **kw)
     cam = Camera(pos=(0.0, 0.0, -14.0), look_at=(0.0, 0.0, 0.0))
     return scene, cfg, cam
 
@@ -37,19 +36,6 @@ def test_fused_loop_matches_host_loop():
                                   np.asarray(st_h["samps"]))
     np.testing.assert_array_equal(np.asarray(st_f["active"]),
                                   np.asarray(st_h["active"]))
-
-
-def test_compaction_on_matches_off():
-    """Alive-first wavefront compaction is a pure scheduling optimization:
-    stochastic streams are keyed on ORIGINAL lane ids, so results with
-    compaction on and off must be bit-identical (jnp backend)."""
-    scene, cfg_off, cam = _setup(compact=False)
-    _, cfg_on, _ = _setup(compact=True)
-    r_off = Renderer(scene, cam, cfg_off, 32, 32)
-    r_on = Renderer(scene, cam, cfg_on, 32, 32)
-    img_off = np.asarray(r_off.render())
-    img_on = np.asarray(r_on.render())
-    np.testing.assert_array_equal(img_off, img_on)
 
 
 def test_wave_batching_matches_single_waves():

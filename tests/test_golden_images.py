@@ -15,7 +15,7 @@ tolerances on the downsampled images:
   examples/caustics/test_16/render_7.5m.png — same scene, all assets
   present): measured mean 0.008, P95 0.040 at 2 spp / 20k photons.
 
-Higher-fidelity side-by-sides (512px, full photon budgets, TPU) are
+Higher-fidelity side-by-sides (512px, full photon budgets) are
 produced by scripts/validate_golden.py and committed under docs/validation/.
 """
 
@@ -141,8 +141,7 @@ def test_glass_matches_reference_render():
     5k photons vs the golden's converged 8-32spp / 275k; glass.obj (the
     stemware on the left) is MISSING from the checkout like dragon.obj,
     and the 95000-intensity light makes 2 spp firefly-noisy — measured
-    mean 0.157, so the tolerance is 0.19.  The high-fidelity side-by-side
-    comes from scripts/bench_glass.py on TPU."""
+    mean 0.157, so the tolerance is 0.19."""
     img = _render(f"{REF}/scenes/glass/glass.scn", spp=2, depth=5,
                   photons=5000, size=96)
     gold = _golden(f"{REF}/scenes/glass/render.png", size=96)

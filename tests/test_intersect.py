@@ -114,25 +114,3 @@ def test_stochastic_alpha_refractive_always_hits():
     ro = np.zeros((8, 3)); rd = np.tile([0, 0, 1.0], (8, 1))
     hit = closest_hit(scene, jnp.asarray(ro), jnp.asarray(rd))
     assert (np.asarray(hit.prim) == 0).all()
-
-
-def test_compacted_permutation_roundtrip():
-    """_compacted must return results in original lane order."""
-    import jax.numpy as jnp
-    from gi_raytracer_tpu.ops.intersect import _compacted
-
-    R = 64
-    rng = np.random.default_rng(3)
-    ro = jnp.asarray(rng.normal(size=(R, 3)))
-    rd = jnp.asarray(rng.normal(size=(R, 3)))
-    alive = jnp.asarray(rng.random(R) > 0.5)
-    tl = jnp.asarray(rng.random(R))
-
-    def fn(ro_, rd_, act_, tl_):
-        # echo a lane-identifying value; dead lanes produce -1
-        v = ro_[:, 0] + rd_[:, 1] + tl_
-        return jnp.where(act_, v, -1.0)
-
-    got = _compacted(fn, ro, rd, alive, tl)
-    want = jnp.where(alive, ro[:, 0] + rd[:, 1] + tl, -1.0)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-12)

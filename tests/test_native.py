@@ -1,5 +1,7 @@
 """Native C++ components vs their NumPy/Python twins."""
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -89,7 +91,8 @@ def test_native_bvh_closest_hit_matches_numpy_tree():
 
 @needs_native
 def test_native_obj_matches_python():
-    path = "/root/reference/scenes/cornell/box.obj"
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "cornell", "wall.obj")
     tv_py, tn_py, tuv_py = load_obj(path)
     raw = load_obj_native(path)
     assert raw is not None
@@ -99,3 +102,22 @@ def test_native_obj_matches_python():
     assert n_faces == tv_py.shape[0]
     tv_nat = v[fv.reshape(-1, 3) - 1]
     np.testing.assert_allclose(tv_nat, tv_py, atol=1e-5)
+
+
+def test_native_library_builds_from_sources(tmp_path):
+    """The library is compiled from the committed sources into a file named
+    by their hash, and an existing build is reused, not rebuilt."""
+    import ctypes
+    from gi_raytracer_tpu import native
+
+    so = native._compile(str(tmp_path))
+    if so is None:
+        pytest.skip("no C++ compiler")
+    assert so == native.library_path(str(tmp_path))
+    assert os.path.basename(so).startswith("_gi_native-")
+    lib = ctypes.CDLL(so)
+    assert hasattr(lib, "gi_build_bvh") and hasattr(lib, "gi_obj_parse")
+    mtime = os.path.getmtime(so)
+    assert native._compile(str(tmp_path)) == so
+    assert os.path.getmtime(so) == mtime
+    assert [p.name for p in tmp_path.iterdir()] == [os.path.basename(so)]

@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from gi_raytracer_tpu.config import RenderConfig
 from gi_raytracer_tpu.scene import SceneBuilder
@@ -168,3 +169,43 @@ def test_dense_map_truncation_correction():
     expect = (P / np.pi) * 1e-6
     ratio = est[:, 0] / expect
     assert np.all(ratio > 0.5) and np.all(ratio < 2.0), (est[:, 0], expect)
+
+
+def test_chunkrow_matches_per_point_estimate():
+    """The chunk-row kNN (training losses) and the per-point gather
+    compute the same estimator on the same map, and the backend switch
+    routes to each."""
+    from gi_raytracer_tpu.render.photon import sample_photons_backend
+    from gi_raytracer_tpu.render.photon_knn import sample_photons_chunkrow
+
+    rng = np.random.default_rng(4)
+    P = 3000
+    # two clusters on a plane plus sparse background, like a caustic
+    ppos = np.concatenate([rng.normal(0, 0.1, (P // 3, 3)),
+                           rng.normal(0.5, 0.05, (P // 3, 3)),
+                           rng.uniform(-1, 1, (P - 2 * (P // 3), 3))])
+    ppos[:, 1] = 0.0
+    pdir = rng.normal(size=(P, 3))
+    pdir /= np.linalg.norm(pdir, axis=1, keepdims=True)
+    pcol = rng.uniform(0, 1, (P, 3))
+    batch = PhotonBatch(jnp.asarray(ppos, jnp.float32),
+                        jnp.asarray(pdir, jnp.float32),
+                        jnp.asarray(pcol, jnp.float32),
+                        jnp.asarray(rng.uniform(size=P) < 0.95))
+    pm = build_photon_map(batch, (-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
+    q = rng.uniform(-1, 1, (500, 3)).astype(np.float32)
+    q[:, 1] = rng.normal(0, 0.02, 500)
+    d = rng.normal(size=(500, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    q, d = jnp.asarray(q), jnp.asarray(d)
+    per_point = np.asarray(sample_photons(pm, q, d, 16))
+    chunkrow = np.asarray(sample_photons_chunkrow(pm, q, d, 16))
+    assert (np.abs(per_point).sum(1) > 0).mean() > 0.5
+    np.testing.assert_allclose(chunkrow, per_point, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(
+        np.asarray(sample_photons_backend(pm, q, d, 16, "chunkrow")),
+        chunkrow)
+    np.testing.assert_array_equal(
+        np.asarray(sample_photons_backend(pm, q, d, 16, "jnp")), per_point)
+    with pytest.raises(ValueError):
+        sample_photons_backend(pm, q, d, 16, "pallas")

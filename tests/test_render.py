@@ -1,4 +1,6 @@
-"""End-to-end render tests on the bundled reference scenes (cheap sizes)."""
+"""End-to-end render tests on the in-repo cornell scene (cheap sizes)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -7,7 +9,8 @@ from gi_raytracer_tpu.scene import load_scene, SceneBuilder
 from gi_raytracer_tpu.render import Camera
 from gi_raytracer_tpu.render.integrator import Renderer, render_image
 
-CORNELL = "/root/reference/scenes/cornell/test.scn"
+CORNELL = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scenes", "cornell", "cornell.scn")
 
 
 @pytest.fixture(scope="module")
@@ -22,7 +25,7 @@ def test_cornell_renders_with_expected_wall_colors(cornell):
     assert img.shape == (32, 32, 3)
     assert np.isfinite(img).all()
     assert img.mean() > 0.05, "image black"
-    # left wall is red-dominant, right wall blue-dominant (test.scn mats 3/4)
+    # left wall is red-dominant, right wall blue-dominant (cornell.scn mats 1/2)
     left = img[8:24, :6].mean(axis=(0, 1))
     right = img[8:24, -6:].mean(axis=(0, 1))
     assert left[0] > left[2], f"left wall not red: {left}"
